@@ -1,25 +1,23 @@
-# unires-tpu runtime image (parity with the reference's Dockerfile, which
-# builds nitorch's CUDA backend — here the accelerator stack is jax[tpu],
-# so the image is pure-Python plus the pinned JAX/libtpu pair).
+# unires-jax runtime image (parity with the reference's Dockerfile, which
+# builds nitorch's CUDA backend — here the accelerator stack is JAX with its
+# CUDA plugin, so the image is pure Python plus the pinned JAX line).
 #
-# Build:  docker build -t unires-tpu:0.2 .
-# Run  :  docker run --rm --privileged -v /dev:/dev unires-tpu:0.2 \
-#             unires /data/t1.nii --vx 1.0
-# (--privileged + /dev for TPU VM device access; on GKE use the TPU device
-#  plugin instead.)
+# Build:  docker build -t unires-jax:0.2 .
+# Run  :  docker run --rm --gpus all -v $PWD:/data unires-jax:0.2 \
+#             /data/t1.nii --vx 1.0
 FROM python:3.12-slim
 
-RUN pip install --no-cache-dir \
-    "jax[tpu]" -f https://storage.googleapis.com/jax-releases/libtpu_releases.html \
-    numpy scipy matplotlib
+RUN apt-get update && apt-get install -y --no-install-recommends g++ \
+    && rm -rf /var/lib/apt/lists/* \
+    && pip install --no-cache-dir "jax[cuda12]==0.9.*" numpy scipy matplotlib
 
-WORKDIR /opt/unires-tpu
+WORKDIR /opt/unires-jax
 COPY pyproject.toml README.md ./
-COPY unires_tpu ./unires_tpu
+COPY unires_jax ./unires_jax
 RUN pip install --no-cache-dir .
 
 # persistent XLA compilation cache across container restarts
-ENV JAX_COMPILATION_CACHE_DIR=/var/cache/unires_tpu_jax
-VOLUME /var/cache/unires_tpu_jax
+ENV JAX_COMPILATION_CACHE_DIR=/var/cache/unires_jax
+VOLUME /var/cache/unires_jax
 
 ENTRYPOINT ["unires"]

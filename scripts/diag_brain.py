@@ -13,6 +13,7 @@ Usage: python scripts/diag_brain.py [--no-rigid] [--no-coreg] [--dim 121]
 """
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -30,17 +31,17 @@ def main():
                     help="cubic dim override (0 = bench 181x217x181)")
     ap.add_argument("--max-iter", type=int, default=-1)
     ap.add_argument("--print", dest="do_print", type=int, default=1)
-    ap.add_argument("--pose-budget", type=float, default=None)
     args = ap.parse_args()
 
     import jax.numpy as jnp
 
-    from tests.phantoms import brain_phantom
-    from unires_tpu import Settings, init
-    from unires_tpu.geometry import affine_diag, affine_matrix_classic
-    from unires_tpu.models.forward import proj_apply
-    from unires_tpu.models.proj_op import proj_info
-    from unires_tpu.pipeline.fit import fit as fit_solver
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
+    from phantoms import brain_phantom
+    from unires_jax import Settings, init
+    from unires_jax.geometry import affine_diag, affine_matrix_classic
+    from unires_jax.models.forward import proj_apply
+    from unires_jax.models.proj_op import proj_info
+    from unires_jax.pipeline.fit import fit as fit_solver
 
     dim_y = (args.dim,) * 3 if args.dim else (181, 217, 181)
     rng = np.random.default_rng(0)
@@ -52,7 +53,7 @@ def main():
 
     # zero-Lie-mean rigid draws, exactly like bench.py (the common mode is
     # unobservable gauge; see bench.py for the rationale)
-    from unires_tpu.geometry import affine_basis, expm, rigid_log
+    from unires_jax.geometry import affine_basis, expm, rigid_log
 
     basis_se = affine_basis("SE")
     rps = [rng.uniform(-2, 2, 3).tolist()
@@ -88,8 +89,6 @@ def main():
                     unified_rigid=True, scaling=True)
     if args.max_iter >= 0:
         sett.max_iter = args.max_iter
-    if args.pose_budget is not None:
-        sett.pose_budget = args.pose_budget
     t0 = time.time()
     x, y, sett = init(chans, sett)
     t_init = time.time() - t0
@@ -100,7 +99,7 @@ def main():
         print(f"  coreg correction ch{c} t=" +
               ",".join(f"{v:+.2f}" for v in d[:3, 3]))
 
-    from unires_tpu.ops.resample import affine_to_M, pull
+    from unires_jax.ops.resample import affine_to_M, pull
 
     M = affine_to_M(y[0].mat)
     gt_on_y = np.asarray(pull(gtj, M, y[0].dim))

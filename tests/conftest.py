@@ -1,8 +1,8 @@
 """Test configuration: run on CPU with 8 virtual devices.
 
-The driver benches on the real TPU; tests must be hermetic and fast, and the
-multi-chip sharding tests need several devices, so we force the host platform
-with 8 virtual CPU devices before JAX initialises.
+Tests must be hermetic and fast, and the multi-device sharding tests need
+several devices, so we force the host platform with 8 virtual CPU devices
+before JAX initialises. Checks that need a GPU live in chip_smoke.py.
 """
 import os
 

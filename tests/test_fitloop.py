@@ -10,9 +10,9 @@ import pytest
 
 from phantoms import blob_phantom, degrade
 
-from unires_tpu import Settings, init
-from unires_tpu.geometry import affine_basis, affine_matrix_classic, expm
-from unires_tpu.pipeline.fit import fit as fit_solver
+from unires_jax import Settings, init
+from unires_jax.geometry import affine_basis, affine_matrix_classic, expm
+from unires_jax.pipeline.fit import fit as fit_solver
 
 
 def _problem(rigid_params=None, scl=0.0, seed=3, **kw):
