@@ -26,11 +26,11 @@ def main():
     from chip_smoke import phase_device
 
     devs = phase_device()
-    from unires_jax import Settings, init
-    from unires_jax.geometry import affine_matrix_classic, affine_diag
-    from unires_jax.models.forward import proj_apply
-    from unires_jax.models.proj_op import proj_info
-    from unires_jax.pipeline.fit import fit as fit_solver
+    from unires_tpu import Settings, init
+    from unires_tpu.geometry import affine_matrix_classic, affine_diag
+    from unires_tpu.models.forward import proj_apply
+    from unires_tpu.models.proj_op import proj_info
+    from unires_tpu.pipeline.fit import fit as fit_solver
 
     # --- build the 3-channel workload (dims as in the reference demos).
     # Ground truth: the STRUCTURED brain phantom (nested tissue plateaus,
@@ -57,7 +57,7 @@ def main():
     # demo_single_channel.ipynb:107), so fixing the synthetic common frame
     # at zero makes MSE-vs-GT well-posed while leaving the per-channel
     # misalignment the solver must actually recover untouched.
-    from unires_jax.geometry import affine_basis, expm, rigid_log
+    from unires_tpu.geometry import affine_basis, expm, rigid_log
 
     basis_se = affine_basis("SE")
     rps = [rng.uniform(-2, 2, 3).tolist()
@@ -93,7 +93,7 @@ def main():
 
     # trilinear baseline = the init reslice (identical to the reference's
     # max_iter=0 output path; BASELINE.md row 2: MSE 35,222.99)
-    from unires_jax.ops.resample import affine_to_M, pull
+    from unires_tpu.ops.resample import affine_to_M, pull
 
     M = affine_to_M(np.linalg.solve(np.eye(4), y[0].mat))
     gt_on_y = np.asarray(pull(gtj, M, y[0].dim))
@@ -121,7 +121,7 @@ def main():
     # one launch + sync per timed run.
     from jax import lax
 
-    from unires_jax.models.forward import make_obs_suite, obs_dyn_args
+    from unires_tpu.models.forward import make_obs_suite, obs_dyn_args
 
     kernels = {}
     CHAIN = 20

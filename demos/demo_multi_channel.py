@@ -19,15 +19,15 @@ sys.path.insert(0, ".")
 def main():
     import jax.numpy as jnp
 
-    from unires_jax import Settings, init, proj_info
-    from unires_jax.geometry import affine_diag, affine_matrix_classic
-    from unires_jax.models.forward import proj_apply
-    from unires_jax.pipeline.fit import fit as fit_solver
+    from unires_tpu import Settings, init, proj_info
+    from unires_tpu.geometry import affine_diag, affine_matrix_classic
+    from unires_tpu.models.forward import proj_apply
+    from unires_tpu.pipeline.fit import fit as fit_solver
 
     rng = np.random.default_rng(0)
 
     if len(sys.argv) == 4:
-        from unires_jax.pipeline.nifti import load
+        from unires_tpu.pipeline.nifti import load
 
         gts = []
         for p in sys.argv[1:4]:

@@ -20,16 +20,16 @@ sys.path.insert(0, ".")
 def main():
     import jax.numpy as jnp
 
-    from unires_jax import Settings, init, proj_info
-    from unires_jax.geometry import affine_diag, affine_matrix_classic
-    from unires_jax.models.forward import proj_apply
-    from unires_jax.pipeline.fit import fit as fit_solver
+    from unires_tpu import Settings, init, proj_info
+    from unires_tpu.geometry import affine_diag, affine_matrix_classic
+    from unires_tpu.models.forward import proj_apply
+    from unires_tpu.pipeline.fit import fit as fit_solver
 
     rng = np.random.default_rng(0)
 
     # ---- ground truth ----
     if len(sys.argv) > 1:
-        from unires_jax.pipeline.nifti import load
+        from unires_tpu.pipeline.nifti import load
 
         gt, hdr = load(sys.argv[1])
         mat_gt = hdr.affine
@@ -75,7 +75,7 @@ def main():
 def _gt_on(gt, mat_gt, yc):
     import jax.numpy as jnp
 
-    from unires_jax.ops.resample import affine_to_M, pull
+    from unires_tpu.ops.resample import affine_to_M, pull
 
     M = affine_to_M(np.linalg.solve(mat_gt, yc.mat))
     return np.asarray(pull(jnp.asarray(gt), M, yc.dim))

@@ -1,11 +1,11 @@
 """Minimal API example (mirrors the reference demos/simple_api_use.py).
 
-Give unires-jax a bunch of NIfTI paths (or (array, affine) pairs) and get
+Give UniRes-TPU a bunch of NIfTI paths (or (array, affine) pairs) and get
 1 mm isotropic reconstructions back.
 """
 import sys
 
-from unires_jax import Settings, preproc
+from unires_tpu import Settings, preproc
 
 if __name__ == "__main__":
     paths = sys.argv[1:]

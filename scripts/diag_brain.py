@@ -37,11 +37,11 @@ def main():
 
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
     from phantoms import brain_phantom
-    from unires_jax import Settings, init
-    from unires_jax.geometry import affine_diag, affine_matrix_classic
-    from unires_jax.models.forward import proj_apply
-    from unires_jax.models.proj_op import proj_info
-    from unires_jax.pipeline.fit import fit as fit_solver
+    from unires_tpu import Settings, init
+    from unires_tpu.geometry import affine_diag, affine_matrix_classic
+    from unires_tpu.models.forward import proj_apply
+    from unires_tpu.models.proj_op import proj_info
+    from unires_tpu.pipeline.fit import fit as fit_solver
 
     dim_y = (args.dim,) * 3 if args.dim else (181, 217, 181)
     rng = np.random.default_rng(0)
@@ -53,7 +53,7 @@ def main():
 
     # zero-Lie-mean rigid draws, exactly like bench.py (the common mode is
     # unobservable gauge; see bench.py for the rationale)
-    from unires_jax.geometry import affine_basis, expm, rigid_log
+    from unires_tpu.geometry import affine_basis, expm, rigid_log
 
     basis_se = affine_basis("SE")
     rps = [rng.uniform(-2, 2, 3).tolist()
@@ -99,7 +99,7 @@ def main():
         print(f"  coreg correction ch{c} t=" +
               ",".join(f"{v:+.2f}" for v in d[:3, 3]))
 
-    from unires_jax.ops.resample import affine_to_M, pull
+    from unires_tpu.ops.resample import affine_to_M, pull
 
     M = affine_to_M(y[0].mat)
     gt_on_y = np.asarray(pull(gtj, M, y[0].dim))

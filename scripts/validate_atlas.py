@@ -1,6 +1,6 @@
 """Validate atlas geometry against a REAL T1 template (round-3 VERDICT #7).
 
-The bundled atlas is a procedural ellipsoid phantom (unires_jax/data/atlas.py)
+The bundled atlas is a procedural ellipsoid phantom (unires_tpu/data/atlas.py)
 generated in MNI-ish RAS space; the crop boxes (geometry._BB_MM) are
 hand-derived from the published MNI152 brain/head extents. This script
 quantifies both against a real template when one is available:
@@ -37,10 +37,10 @@ def main():
         os.path.abspath(__file__))))
     import jax.numpy as jnp
 
-    from unires_jax.data.atlas import default_atlas
-    from unires_jax.geometry import _BB_MM
-    from unires_jax.pipeline.nifti import load
-    from unires_jax.pipeline.registration import atlas_align
+    from unires_tpu.data.atlas import default_atlas
+    from unires_tpu.geometry import _BB_MM
+    from unires_tpu.pipeline.nifti import load
+    from unires_tpu.pipeline.registration import atlas_align
 
     tdat, thdr = load(path)
     tmat = np.asarray(thdr.affine, np.float64)

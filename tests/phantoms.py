@@ -6,9 +6,9 @@ operator the solver uses (reference demo_single_channel.ipynb cell 4).
 """
 import numpy as np
 
-from unires_jax.geometry import affine_diag, affine_matrix_classic
-from unires_jax.models.forward import proj_apply
-from unires_jax.models.proj_op import proj_info
+from unires_tpu.geometry import affine_diag, affine_matrix_classic
+from unires_tpu.models.forward import proj_apply
+from unires_tpu.models.proj_op import proj_info
 
 import jax.numpy as jnp
 
@@ -65,7 +65,7 @@ def brain_phantom(dim=(181, 217, 181), contrast="t1", amplitude=2000.0,
     vs trilinear 35,222.99, demos/demo_single_channel.ipynb:250,327).
 
     Geometry lives in an MNI-like RAS frame (AC near the volume centre,
-    consistent with unires_jax.data.default_atlas and geometry.bb_atlas), so
+    consistent with unires_tpu.data.default_atlas and geometry.bb_atlas), so
     the same phantom validates the atlas/crop path: ``return_mat=True`` also
     returns the 1 mm affine placing it at MNI coordinates.
 

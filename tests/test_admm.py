@@ -6,8 +6,8 @@ import pytest
 
 from phantoms import blob_phantom, degrade
 
-from unires_jax import Settings, init
-from unires_jax.pipeline.fit import fit as fit_solver, get_sched, get_gain
+from unires_tpu import Settings, init
+from unires_tpu.pipeline.fit import fit as fit_solver, get_sched, get_gain
 
 
 def _mse(a, b):

@@ -4,7 +4,7 @@
 unconditionally SKIPs without ``UNIRES_ATLAS`` (zero-egress environments).
 These tests make the atlas/crop path executable everywhere: the structured
 brain phantom (tests/phantoms.brain_phantom) lives at known MNI coordinates
-(``return_mat=True`` — same frame as unires_jax.data.default_atlas and
+(``return_mat=True`` — same frame as unires_tpu.data.default_atlas and
 geometry._BB_MM), so a known synthetic "scanner" transform applied to its
 header must be recovered by ``atlas_align`` and undone by the full
 ``common_output``/``crop`` init path.
@@ -16,10 +16,10 @@ import numpy as np
 import pytest
 
 from phantoms import brain_phantom
-from unires_jax import Settings, init
-from unires_jax.geometry import (affine_matrix_classic, bb_atlas,
+from unires_tpu import Settings, init
+from unires_tpu.geometry import (affine_matrix_classic, bb_atlas,
                                  affine_diag, voxel_size)
-from unires_jax.pipeline.registration import atlas_align
+from unires_tpu.pipeline.registration import atlas_align
 
 import jax.numpy as jnp
 
@@ -68,7 +68,7 @@ def test_common_output_grid_geometry_end_to_end():
     #    (format_y crop branch, reference _core.py:230-239), then padded by
     #    ceil_pow to "nice" dims (common_output forces pow=256, centred —
     #    reference _core.py:240-253)
-    from unires_jax.geometry import ceil_pow
+    from unires_tpu.geometry import ceil_pow
 
     mat_mu, dim_mm = bb_atlas(fov="brain")
     vx_y = voxel_size(y[0].mat)

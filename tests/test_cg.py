@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from unires_jax.solvers.cg import cg
+from unires_tpu.solvers.cg import cg
 
 
 def test_cg_solves_spd_system():
@@ -19,7 +19,7 @@ def test_cg_solves_spd_system():
 
 def test_cg_volume_operator():
     # smooth SPD operator on a volume: v + DtD v
-    from unires_jax.ops.finite_diff import DtD
+    from unires_tpu.ops.finite_diff import DtD
 
     rng = np.random.default_rng(1)
     u_true = jnp.asarray(rng.random((12, 13, 14), dtype=np.float32))
@@ -43,7 +43,7 @@ def test_cg_early_stop_respects_max_iter():
 def test_cg_batched_matches_per_channel_residual_stop():
     """Each batch entry of cg_batched must follow the trajectory the
     per-channel residual-stop cg gives it alone (converged entries frozen)."""
-    from unires_jax.solvers.cg import cg, cg_batched
+    from unires_tpu.solvers.cg import cg, cg_batched
 
     rng = np.random.default_rng(0)
     C, n = 3, 50

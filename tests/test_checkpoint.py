@@ -3,8 +3,8 @@ import numpy as np
 
 from phantoms import blob_phantom, degrade
 
-from unires_jax import Settings, init
-from unires_jax.pipeline.fit import fit as fit_solver
+from unires_tpu import Settings, init
+from unires_tpu.pipeline.fit import fit as fit_solver
 
 
 def _problem(tmp_path, **kw):
@@ -40,7 +40,7 @@ def test_resume_matches_uninterrupted(tmp_path):
 
 
 def test_checkpoint_roundtrip_state(tmp_path):
-    from unires_jax.pipeline.checkpoint import (load_checkpoint,
+    from unires_tpu.pipeline.checkpoint import (load_checkpoint,
                                                 save_checkpoint, restore_into)
     import jax.numpy as jnp
 

@@ -3,9 +3,9 @@ import numpy as np
 
 from phantoms import blob_phantom, degrade
 
-from unires_jax import Settings, init
-from unires_jax.pipeline.fit import fit as fit_solver
-from unires_jax.solvers.admm import step_size
+from unires_tpu import Settings, init
+from unires_tpu.pipeline.fit import fit as fit_solver
+from unires_tpu.solvers.admm import step_size
 
 
 def test_ct_forces_rho_one_and_disables_scaling():
@@ -26,7 +26,7 @@ def test_ct_forces_rho_one_and_disables_scaling():
 
 
 def test_plot_utils_headless(tmp_path):
-    from unires_jax.utils.plots import plot_convergence, show_slices
+    from unires_tpu.utils.plots import plot_convergence, show_slices
 
     obj = np.cumsum(-np.ones((5, 3)), axis=0) + 100
     fig = plot_convergence(obj, save_to=str(tmp_path / "conv.png"))

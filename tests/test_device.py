@@ -4,9 +4,9 @@ import os
 import jax
 import pytest
 
-import unires_jax
-from unires_jax import Settings
-from unires_jax.settings import use_device
+import unires_tpu
+from unires_tpu import Settings
+from unires_tpu.settings import use_device
 
 
 def test_device_defaults_to_gpu_and_accepts_cuda():
@@ -33,7 +33,7 @@ def restore_cache_dir():
 
 def test_compile_cache_follows_env(monkeypatch, tmp_path, restore_cache_dir):
     monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
-    assert unires_jax._enable_compilation_cache() == str(tmp_path)
+    assert unires_tpu._enable_compilation_cache() == str(tmp_path)
     assert jax.config.jax_compilation_cache_dir == str(tmp_path)
 
 
@@ -41,7 +41,7 @@ def test_compile_cache_defaults_into_checkout(monkeypatch, restore_cache_dir):
     monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     want = os.path.join(root, ".jax_cache")
-    assert unires_jax._enable_compilation_cache() == want
+    assert unires_tpu._enable_compilation_cache() == want
     assert jax.config.jax_compilation_cache_dir == want
     with open(os.path.join(root, ".gitignore")) as f:
         assert ".jax_cache/" in f.read().split()

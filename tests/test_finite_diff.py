@@ -2,7 +2,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unires_jax.ops.finite_diff import im_gradient, im_divergence, DtD
+from unires_tpu.ops.finite_diff import im_gradient, im_divergence, DtD
 
 
 VX = [(1.0, 1.0, 1.0), (1.0, 1.3, 4.0)]

@@ -15,10 +15,10 @@ import numpy as np
 import pytest
 
 from phantoms import blob_phantom, degrade
-from unires_jax import Settings, init
-from unires_jax.parallel.fit_batch import (batch_mesh, check_homogeneous,
+from unires_tpu import Settings, init
+from unires_tpu.parallel.fit_batch import (batch_mesh, check_homogeneous,
                                            fit_batch)
-from unires_jax.pipeline.fit import fit as fit_solver
+from unires_tpu.pipeline.fit import fit as fit_solver
 
 
 def _subject_data(seed, dim=(16, 16, 17)):
@@ -106,8 +106,8 @@ def test_fit_batch_matches_single_device_fit():
 def test_preproc_batch_writes_outputs(tmp_path):
     """CLI-level plumbing: --shard routes comma-grouped subjects through
     preproc_batch and writes per-subject reconstructions."""
-    from unires_jax.pipeline.nifti import save as nifti_save
-    from unires_jax.cli import run as cli_run
+    from unires_tpu.pipeline.nifti import save as nifti_save
+    from unires_tpu.cli import run as cli_run
 
     paths = []
     for b in range(2):

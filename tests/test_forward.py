@@ -2,11 +2,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unires_jax.geometry import affine_diag, affine_matrix_classic
-from unires_jax.models.forward import check_adjoint, proj_apply
-from unires_jax.models.proj_op import proj_info
-from unires_jax.ops.conv import blur_down, blur_up
-from unires_jax.ops.scaling import apply_scaling, even_slices, odd_slices
+from unires_tpu.geometry import affine_diag, affine_matrix_classic
+from unires_tpu.models.forward import check_adjoint, proj_apply
+from unires_tpu.models.proj_op import proj_info
+from unires_tpu.ops.conv import blur_down, blur_up
+from unires_tpu.ops.scaling import apply_scaling, even_slices, odd_slices
 
 
 def _po(thick=4.0, rot=0.0, gap=0.0, scl=0.0, prof_ip=2, prof_tp=0, dim_y=(24, 26, 28)):
@@ -103,8 +103,8 @@ def test_2d_operator_path():
     chain, exact vs. an explicitly-built (X, Y, 1) 3D operator."""
     import numpy as np
 
-    from unires_jax.models.forward import check_adjoint, proj_apply
-    from unires_jax.models.proj_op import proj_info
+    from unires_tpu.models.forward import check_adjoint, proj_apply
+    from unires_tpu.models.proj_op import proj_info
 
     mat2 = np.eye(3)
     mat2[1, 1] = 4.0  # thick y axis, ratio 4

@@ -2,7 +2,7 @@ import numpy as np
 import pytest
 from scipy.linalg import expm as scipy_expm
 
-from unires_jax import geometry as geo
+from unires_tpu import geometry as geo
 
 
 def test_voxel_size():
@@ -91,8 +91,8 @@ def test_bb_atlas_boxes_contain_procedural_anatomy():
     template's bright voxels, the 'head' box its above-background voxels."""
     import numpy as np
 
-    from unires_jax.data.atlas import default_atlas
-    from unires_jax.geometry import bb_atlas
+    from unires_tpu.data.atlas import default_atlas
+    from unires_tpu.geometry import bb_atlas
 
     dat, mat = default_atlas()
     ii, jj, kk = np.meshgrid(*(np.arange(d) for d in dat.shape),
@@ -113,14 +113,14 @@ def test_bb_atlas_boxes_contain_procedural_anatomy():
 
 
 def test_rigid_log_roundtrip():
-    from unires_jax.geometry import affine_basis, expm, rigid_log
+    from unires_tpu.geometry import affine_basis, expm, rigid_log
 
     B = affine_basis("SE")
     q = np.array([3.0, -2.0, 1.5, 0.05, -0.03, 0.08])
     R = expm(q, B)
     assert np.allclose(rigid_log(R, B), q, atol=1e-10)
     # and from a classic-parameterised matrix (different factorization)
-    from unires_jax.geometry import affine_matrix_classic
+    from unires_tpu.geometry import affine_matrix_classic
 
     M = affine_matrix_classic([1.0, 2.0, -0.5, 0.04, 0.02, -0.06])
     assert np.allclose(expm(rigid_log(M, B), B), M, atol=1e-10)

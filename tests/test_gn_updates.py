@@ -8,12 +8,12 @@ import numpy as np
 
 from phantoms import blob_phantom, degrade
 
-from unires_jax import Settings, init
-from unires_jax.geometry import affine_basis, expm
-from unires_jax.pipeline.fit import fit as fit_solver
-from unires_jax.solvers.admm import obs_dyn_args
-from unires_jax.solvers.scaling_gn import make_scaling_fns, update_scaling
-from unires_jax.solvers.rigid import update_rigid
+from unires_tpu import Settings, init
+from unires_tpu.geometry import affine_basis, expm
+from unires_tpu.pipeline.fit import fit as fit_solver
+from unires_tpu.solvers.admm import obs_dyn_args
+from unires_tpu.solvers.scaling_gn import make_scaling_fns, update_scaling
+from unires_tpu.solvers.rigid import update_rigid
 
 
 def _problem(scl_true=0.0, rigid_true=None, noise=20.0, dim=(32, 32, 33), seed=0):
@@ -83,7 +83,7 @@ def test_rigid_update_recovers_true_pose():
                              num_linesearch=6, samp=0)
         lls.append(ll)
     assert lls[-1] < 0.5 * lls[0], lls
-    from unires_jax.geometry import affine_matrix_classic
+    from unires_tpu.geometry import affine_matrix_classic
 
     # po.rigid is the world transform (centre-conjugated q, round 4)
     R_est = np.asarray(o.po.rigid, np.float64)

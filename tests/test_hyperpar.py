@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from unires_jax.pipeline.hyperpar import estimate_noise, fit_gmm2
+from unires_tpu.pipeline.hyperpar import estimate_noise, fit_gmm2
 
 
 def test_gmm2_separates_two_gaussians():
@@ -46,7 +46,7 @@ def test_rician_fit_recovers_noise_sigma():
     """Rayleigh background + Rician foreground: the Rician mixture recovers
     the underlying Gaussian noise sigma (the Gaussian fit is biased to
     ~0.655 sigma on Rayleigh data — the reference demo's sd=49 on sigma=75)."""
-    from unires_jax.pipeline.hyperpar import estimate_noise
+    from unires_tpu.pipeline.hyperpar import estimate_noise
 
     rng = np.random.default_rng(0)
     sigma = 50.0

@@ -1,6 +1,6 @@
 import numpy as np
 
-from unires_jax.kernels import kernel_1d, smooth_kernel
+from unires_tpu.kernels import kernel_1d, smooth_kernel
 
 
 def test_dirac():

@@ -8,9 +8,9 @@ import pytest
 if shutil.which("g++") is None:
     pytest.skip("no g++ in environment", allow_module_level=True)
 
-from unires_jax.geometry import affine_matrix_classic
-from unires_jax.native import pull_np, push_np, pull_grad_np
-from unires_jax.ops.resample import affine_to_M, pull, push, pull_grad
+from unires_tpu.geometry import affine_matrix_classic
+from unires_tpu.native import pull_np, push_np, pull_grad_np
+from unires_tpu.ops.resample import affine_to_M, pull, push, pull_grad
 
 AFFINES = [
     np.eye(4),

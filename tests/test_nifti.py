@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from unires_jax.geometry import affine_matrix_classic
-from unires_jax.pipeline.nifti import load, save
+from unires_tpu.geometry import affine_matrix_classic
+from unires_tpu.pipeline.nifti import load, save
 
 
 def test_roundtrip_plain(tmp_path):

@@ -13,9 +13,9 @@ import jax.numpy as jnp
 
 from phantoms import blob_phantom, degrade
 
-from unires_jax import Settings, init
-from unires_jax.ops.resample import affine_to_M, pull
-from unires_jax.pipeline.fit import fit as fit_solver
+from unires_tpu import Settings, init
+from unires_tpu.ops.resample import affine_to_M, pull
+from unires_tpu.pipeline.fit import fit as fit_solver
 
 
 def _protocol(dim=(48, 48, 49), amplitude=3000.0, seed=0):
@@ -75,8 +75,8 @@ def test_rho_formula_matches_reference_anchor_c3():
     import math
     import types
 
-    from unires_jax.pipeline.fit import get_sched
-    from unires_jax.solvers.admm import step_size
+    from unires_tpu.pipeline.fit import get_sched
+    from unires_tpu.solvers.admm import step_size
 
     taus = [4.158e-4, 2.509e-4, 1.596e-4]
     mus = [405.7, 1959.0, 4278.0]
@@ -102,8 +102,8 @@ def test_rho_formula_matches_reference_anchor_c1():
     import math
     import types
 
-    from unires_jax.pipeline.fit import get_sched
-    from unires_jax.solvers.admm import step_size
+    from unires_tpu.pipeline.fit import get_sched
+    from unires_tpu.solvers.admm import step_size
 
     sd = 49.04
     tau = 1.0 / sd ** 2
@@ -123,7 +123,7 @@ def test_tau_estimation_on_sigma_known_synthetic():
     """BASELINE determinism anchor: tau = 1/sd^2 recovered within a few %
     on a synthetic volume with KNOWN noise sd (the reference estimates
     sd 49.04 -> tau 4.158e-4 on its fixture; here the truth is constructed)."""
-    from unires_jax.pipeline.hyperpar import estimate_noise
+    from unires_tpu.pipeline.hyperpar import estimate_noise
 
     rng = np.random.default_rng(0)
     gt = blob_phantom(dim=(64, 64, 64), n_blobs=12, amplitude=3000.0, seed=1)

@@ -8,8 +8,8 @@ import pytest
 
 from phantoms import blob_phantom, degrade
 
-from unires_jax.geometry import affine_diag
-from unires_jax.pipeline.nifti import load, save
+from unires_tpu.geometry import affine_diag
+from unires_tpu.pipeline.nifti import load, save
 
 
 @pytest.fixture(scope="module")
@@ -28,7 +28,7 @@ def nifti_inputs(tmp_path_factory):
 
 def test_preproc_python_api(nifti_inputs, tmp_path):
     gt, paths, _ = nifti_inputs
-    from unires_jax import Settings, preproc
+    from unires_tpu import Settings, preproc
 
     sett = Settings(vx=1.0, do_coreg=False, do_print=0, max_iter=15,
                     sched_num=0, dir_out=str(tmp_path), write_out=True)
@@ -50,7 +50,7 @@ def test_cli_end_to_end(nifti_inputs, tmp_path):
     env["JAX_PLATFORMS"] = ""
     code = (
         "import jax; jax.config.update('jax_platforms','cpu');"
-        "import unires_jax.cli as cli;"
+        "import unires_tpu.cli as cli;"
         "cli.run([%r, %r, '--vx','1.0','--dir_out',%r,"
         "'--print_info','0','--tolerance','1e-2','--sched','0',"
         "'--device','cpu'])"
@@ -70,7 +70,7 @@ def test_cli_linear_reslice(nifti_inputs, tmp_path):
     out = str(tmp_path / "lin")
     code = (
         "import jax; jax.config.update('jax_platforms','cpu');"
-        "import unires_jax.cli as cli;"
+        "import unires_tpu.cli as cli;"
         "cli.run([%r, '--linear', '--dir_out', %r, '--print_info','0',"
         "'--device','cpu'])"
         % (paths[0], out)
@@ -85,7 +85,7 @@ def test_cli_linear_reslice(nifti_inputs, tmp_path):
 
 def test_write_jtv_and_bids(nifti_inputs, tmp_path):
     gt, paths, _ = nifti_inputs
-    from unires_jax import Settings, init, fit
+    from unires_tpu import Settings, init, fit
 
     sett = Settings(vx=1.0, do_coreg=False, do_print=0, max_iter=4,
                     sched_num=0, dir_out=str(tmp_path), write_out=True,
@@ -103,8 +103,8 @@ def test_profiler_trace_written(tmp_path):
     import os
 
     from phantoms import blob_phantom, degrade
-    from unires_jax import Settings, init
-    from unires_jax.pipeline.fit import fit as fit_solver
+    from unires_tpu import Settings, init
+    from unires_tpu.pipeline.fit import fit as fit_solver
 
     gt = blob_phantom(dim=(16, 16, 17), amplitude=500.0, seed=9)
     x_obs, mat_x, _ = degrade(gt, thick=4.0, noise_sd=20.0, seed=9)

@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from phantoms import blob_phantom, degrade
-from unires_jax import Settings, init
-from unires_jax.ops.resample import _apply_separable, separable_matrices
-from unires_jax.pipeline.fit import _gather_dyn_taus, _gather_subdats
-from unires_jax.solvers.fitloop import init_state, make_fit_chunk
+from unires_tpu import Settings, init
+from unires_tpu.ops.resample import _apply_separable, separable_matrices
+from unires_tpu.pipeline.fit import _gather_dyn_taus, _gather_subdats
+from unires_tpu.solvers.fitloop import init_state, make_fit_chunk
 
 HIGHEST = jax.lax.Precision.HIGHEST
 

@@ -11,16 +11,16 @@ import types
 import numpy as np
 import pytest
 
-from unires_jax import Settings
-from unires_jax.geometry import affine_matrix_classic
-from unires_jax.models.forward import make_resample_suite, obs_dyn_args
-from unires_jax.models.proj_op import proj_info
-from unires_jax.solvers.fitloop import plan_signature
+from unires_tpu import Settings
+from unires_tpu.geometry import affine_matrix_classic
+from unires_tpu.models.forward import make_resample_suite, obs_dyn_args
+from unires_tpu.models.proj_op import proj_info
+from unires_tpu.solvers.fitloop import plan_signature
 
 if shutil.which("g++") is None:
     pytest.skip("no g++ in environment", allow_module_level=True)
 
-from unires_jax.native import push_np  # noqa: E402
+from unires_tpu.native import push_np  # noqa: E402
 
 DIM = (20, 22, 24)
 SMALL = affine_matrix_classic([0.4, -0.3, 0.2, 0.1, -0.05, 0.03])

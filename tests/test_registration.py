@@ -4,8 +4,8 @@ import numpy as np
 
 from phantoms import blob_phantom
 
-from unires_jax.geometry import affine_matrix_classic, voxel_size
-from unires_jax.pipeline.registration import (affine_align, reset_origin,
+from unires_tpu.geometry import affine_matrix_classic, voxel_size
+from unires_tpu.pipeline.registration import (affine_align, reset_origin,
                                               atlas_align)
 
 
@@ -54,8 +54,8 @@ def test_atlas_align_bundled_recovers_offset():
     """Out-of-the-box atlas_align (no UNIRES_ATLAS) registers against the
     BUNDLED procedural MNI template: a rigidly displaced copy of the
     template itself must be re-aligned (round-2 VERDICT item 5)."""
-    from unires_jax.data import default_atlas
-    from unires_jax.geometry import affine_basis, expm
+    from unires_tpu.data import default_atlas
+    from unires_tpu.geometry import affine_basis, expm
 
     adat, amat = default_atlas()
     assert adat.shape == (91, 109, 109) and adat.max() > 0
@@ -71,8 +71,8 @@ def test_atlas_align_bundled_recovers_offset():
 def test_atlas_align_cso_recovers_rigid_and_scale(tmp_path):
     """rigid=False atlas alignment = CSO (SE(3) + isotropic scale), the
     reference's atlas_rigid=False / nitorch mat_cso path (_core.py:345-353)."""
-    from unires_jax.geometry import affine_basis, expm
-    from unires_jax.pipeline.nifti import save
+    from unires_tpu.geometry import affine_basis, expm
+    from unires_tpu.pipeline.nifti import save
 
     gt = blob_phantom(dim=(48, 48, 48), amplitude=1000.0, seed=7)
     rng = np.random.default_rng(7)
@@ -94,7 +94,7 @@ def test_affine_align_mean_gauge():
     """gauge='mean': pairwise alignment identical to gauge='fix', but the
     Lie-mean of the corrections is zero (the common frame sits at the mean
     of the input frames instead of inheriting image fix's pose error)."""
-    from unires_jax.geometry import affine_basis, rigid_log
+    from unires_tpu.geometry import affine_basis, rigid_log
 
     gt = blob_phantom(dim=(24, 26, 24), seed=3)
     R_true = affine_matrix_classic([2.0, -1.5, 1.0, 0.04, -0.02, 0.03])

@@ -3,8 +3,8 @@ import numpy as np
 import pytest
 from scipy import ndimage
 
-from unires_jax.geometry import affine_matrix_classic, affine_diag
-from unires_jax.ops.resample import (
+from unires_tpu.geometry import affine_matrix_classic, affine_diag
+from unires_tpu.ops.resample import (
     affine_to_M,
     pull,
     push,

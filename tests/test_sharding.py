@@ -12,13 +12,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unires_jax import Settings
-from unires_jax.geometry import affine_diag, affine_matrix_classic
-from unires_jax.models.proj_op import proj_info
-from unires_jax.models.forward import proj_apply, obs_dyn_args, make_obs_ops
-from unires_jax.parallel.sharding import (build_mesh, make_sharded_admm_step,
+from unires_tpu import Settings
+from unires_tpu.geometry import affine_diag, affine_matrix_classic
+from unires_tpu.models.proj_op import proj_info
+from unires_tpu.models.forward import proj_apply, obs_dyn_args, make_obs_ops
+from unires_tpu.parallel.sharding import (build_mesh, make_sharded_admm_step,
                                           shard_state)
-from unires_jax.solvers.admm import make_admm_step
+from unires_tpu.solvers.admm import make_admm_step
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")

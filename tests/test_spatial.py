@@ -6,16 +6,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from unires_jax import Settings
-from unires_jax.geometry import affine_matrix_classic
-from unires_jax.models.proj_op import proj_info
-from unires_jax.models.forward import make_obs_ops, obs_dyn_args
-from unires_jax.parallel.spatial import (build_spatial_mesh, halo_divergence,
+from unires_tpu import Settings
+from unires_tpu.geometry import affine_matrix_classic
+from unires_tpu.models.proj_op import proj_info
+from unires_tpu.models.forward import make_obs_ops, obs_dyn_args
+from unires_tpu.parallel.spatial import (build_spatial_mesh, halo_divergence,
                                          halo_gradient,
                                          make_spatial_admm_step,
                                          shard_spatial, spatial_halo_bound)
-from unires_jax.ops.finite_diff import im_divergence, im_gradient
-from unires_jax.solvers.admm import make_admm_step
+from unires_tpu.ops.finite_diff import im_divergence, im_gradient
+from unires_tpu.solvers.admm import make_admm_step
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
@@ -106,8 +106,8 @@ def test_spatial_step_matches_unsharded_sr(thick_axis):
     the thick (blurred+decimated) axis both ON the slab axis (halo
     convolution + slab-consistent decimation) and off it (round-2 VERDICT
     missing item 3). Rotated geometry exercises the resampling halos."""
-    from unires_jax.geometry import affine_diag
-    from unires_jax.parallel.spatial import (make_spatial_admm_step_sr,
+    from unires_tpu.geometry import affine_diag
+    from unires_tpu.parallel.spatial import (make_spatial_admm_step_sr,
                                              sr_halo_bounds)
 
     C = 2
@@ -176,7 +176,7 @@ def test_slab_precond_cuts_cg_iterations():
     ADMM paths — round-3 VERDICT item 5)."""
     from jax.sharding import PartitionSpec as P
 
-    from unires_jax.parallel.spatial import (_make_slab_precond, _pcg,
+    from unires_tpu.parallel.spatial import (_make_slab_precond, _pcg,
                                              AXIS)
 
     n = 8

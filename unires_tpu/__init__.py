@@ -1,4 +1,4 @@
-"""unires-jax: unified super-resolution / denoising for 3D medical images.
+"""unires-tpu: unified super-resolution / denoising for 3D medical images.
 
 A from-scratch JAX/XLA re-design with the capabilities of brudfors/UniRes
 (multi-channel joint-total-variation MAP reconstruction via ADMM + CG, with

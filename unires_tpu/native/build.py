@@ -18,7 +18,7 @@ def get_lib() -> ctypes.CDLL:
         tag = hashlib.sha256(f.read()).hexdigest()[:16]
     cache_dir = os.environ.get(
         "UNIRES_NATIVE_CACHE",
-        os.path.join(tempfile.gettempdir(), "unires_jax_native"))
+        os.path.join(tempfile.gettempdir(), "unires_tpu_native"))
     os.makedirs(cache_dir, exist_ok=True)
     so_path = os.path.join(cache_dir, f"unires_native_{tag}.so")
     if not os.path.exists(so_path):

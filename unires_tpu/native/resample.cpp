@@ -7,7 +7,7 @@
 //   * an oracle for the XLA paths (tests/test_native.py, chip_smoke.py), and
 //   * a fast host-side path for CPU-only utilities.
 //
-// Built by unires_jax/native/build.py with g++ -O3 -shared; bound via ctypes.
+// Built by unires_tpu/native/build.py with g++ -O3 -shared; bound via ctypes.
 
 #include <cmath>
 #include <cstdint>

@@ -1,6 +1,6 @@
 """Device-side (jit-traceable, f32) Lie-group and small-affine helpers.
 
-The host geometry core (`unires_jax.geometry`) does all of this in f64 numpy
+The host geometry core (`unires_tpu.geometry`) does all of this in f64 numpy
 once per operator build. The device variants here exist so the *fit loop*
 can update rigid poses inside a single jitted chunk of outer iterations
 without bouncing 4x4 matrices through the host every iteration (the

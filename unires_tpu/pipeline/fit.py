@@ -168,7 +168,7 @@ def fit(x: XData, y: YData, sett):
         n_vetoed_seen = 0
         n_sat_seen = 0
         veto_streak = 0
-        debug_timing = bool(os.environ.get("UNIRES_TIME_CHUNKS"))
+        debug_timing = bool(os.environ.get("UNIRES_TPU_TIME_CHUNKS"))
         profiler_ctx = None
         if getattr(sett, "profile_dir", None):
             # device-level tracing (SURVEY §5: the reference has wall-clock
@@ -300,7 +300,7 @@ def fit(x: XData, y: YData, sett):
                       + (" -> re-planning"
                          if escalate_on and veto_streak >= 2 else ""),
                       file=_sys.stdout if sett.do_print >= 1 else _sys.stderr)
-            if os.environ.get("UNIRES_DEBUG_Q"):
+            if os.environ.get("UNIRES_TPU_DEBUG_Q"):
                 qs = np.asarray(q_h, np.float64)
                 print(f"[q@{n_done}] " + "; ".join(
                     f"{i}:" + ",".join(f"{v:+.4f}" for v in qs[i])

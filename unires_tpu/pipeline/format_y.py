@@ -148,7 +148,7 @@ def init_y_dat(x: XData, y: YData, sett):
     import os as _os
     import time as _time
 
-    _dbg = _os.environ.get("UNIRES_TIMING")
+    _dbg = _os.environ.get("UNIRES_TPU_TIMING")
     for c in range(len(x)):
         dat_y = jnp.zeros(dim_y, jnp.float32)
         sm = jnp.zeros(dim_y, jnp.float32)

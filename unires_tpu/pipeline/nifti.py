@@ -1,7 +1,7 @@
 """Self-contained NIfTI-1 reader/writer (host-side).
 
 The reference delegates NIfTI I/O to nitorch.io/nibabel (unires/_util.py:
-134-226); this environment has neither, so unires-jax ships its own codec:
+134-226); this environment has neither, so unires-tpu ships its own codec:
 header parse/build, sform/qform affines, scl_slope/inter scaling, gzip, and
 save-like-source. Covers the subset of NIfTI-1 the pipeline needs (3D/4D
 scalar volumes); raises clearly on anything exotic.
@@ -37,7 +37,7 @@ class NiftiHeader:
     scl_slope: float = 1.0
     scl_inter: float = 0.0
     pixdim: Tuple[float, ...] = None
-    descrip: bytes = b"unires-jax"
+    descrip: bytes = b"unires-tpu"
     raw: Optional[bytes] = None  # original header bytes (save-like-source)
 
 
@@ -130,7 +130,7 @@ def load(path: str):
     return np.ascontiguousarray(dat), hdr
 
 
-def _build_header(shape, dtype, affine, descrip=b"unires-jax") -> bytes:
+def _build_header(shape, dtype, affine, descrip=b"unires-tpu") -> bytes:
     hdr = bytearray(_HDR_SIZE)
     struct.pack_into("<i", hdr, 0, _HDR_SIZE)
     dims = [len(shape)] + list(shape) + [1] * (7 - len(shape))

@@ -537,7 +537,7 @@ def affine_align(imgs: Sequence[Tuple[Array, np.ndarray]], fix: int = 0,
     import os as _os
     import time as _time
 
-    _dbg = _os.environ.get("UNIRES_TIMING")
+    _dbg = _os.environ.get("UNIRES_TPU_TIMING")
     t_fp = _time.time()
     fix_pyr = _iso_pyramid(fix_dat, fix_mat, levels, fwhms)
     if _dbg:
@@ -642,7 +642,7 @@ def atlas_align(img: Tuple[Array, np.ndarray], rigid: bool = True,
 
     The atlas volume: ``atlas_path`` argument, the UNIRES_ATLAS env var (any
     NIfTI in MNI-like space), or — by default — the BUNDLED procedural
-    MNI-space template (unires_jax.data.default_atlas), so true
+    MNI-space template (unires_tpu.data.default_atlas), so true
     rigid(+iso-scale) atlas registration runs out-of-the-box (round-2
     VERDICT item 5: without an atlas this used to silently degrade to
     FOV-centring and --common_output/--crop semantics were approximate).

@@ -192,7 +192,7 @@ def init(data, sett: Optional[Settings] = None):
 
     import time as _time
 
-    _dbg = os.environ.get("UNIRES_TIMING")
+    _dbg = os.environ.get("UNIRES_TPU_TIMING")
     _t = [_time.time()]
 
     def _tick(name):

@@ -64,8 +64,10 @@ class Settings:
     rigid_basis: Optional[Any] = None  # derived: se(3) basis
     rigid_mod: int = 1  # update rigid every rigid_mod iterations
     rigid_gauge_anchor: bool = True  # True (default): mean-centre the pose
-    # gauge each rigid round (subtract the mean q, the reference's
-    # mean_correct semantics, unires/_update.py:243-265). False: free gauge
+    # gauge each rigid round (the reference's mean_correct semantics,
+    # unires/_update.py:243-265): the common mode is projected out of the GN
+    # steps, and the poses are re-centred when the centred set still lowers
+    # the matching term (solvers.fitloop). False: free gauge
     # (the reference fit loop's literal mean_correct=False at run.py:131).
     # Measured at FULL scale (round 4, 181x217x181 3-channel bench): the
     # free gauge lets the pose/recon pair ratchet along the gauge manifold
@@ -77,7 +79,7 @@ class Settings:
     precond: str = "dct"  # CG preconditioner: 'dct' (this rebuild's
     # DCT-diagonal membrane inverse), 'jacobi' (the reference's
     # shipped-but-disabled voxel-diagonal _precond, unires/_update.py:80-102,
-    # for A/B parity runs), or 'none'. UNIRES_PRECOND overrides.
+    # for A/B parity runs), or 'none'. UNIRES_TPU_PRECOND overrides.
     budget_escalate: bool = True  # auto-widen the push windows when a rigid
     # line search saturates them in consecutive chunks (self-healing pose
     # budget; False = log saturation but never rebuild)

@@ -215,12 +215,12 @@ def make_admm_body(x, y, sett):
     # preconditioner mode: Settings.precond in {'dct','jacobi','none'}
     # (reference parity: its Jacobi-style _precond ships disabled,
     # unires/_update.py:80-102 — 'jacobi' reproduces it for A/B runs, 'dct'
-    # is this rebuild's default and supersedes it); the UNIRES_PRECOND
+    # is this rebuild's default and supersedes it); the UNIRES_TPU_PRECOND
     # env var stays as a settings-free bisect override.
     import os as _os
 
     precond_mode = _os.environ.get(
-        "UNIRES_PRECOND", getattr(sett, "precond", "dct") or "dct")
+        "UNIRES_TPU_PRECOND", getattr(sett, "precond", "dct") or "dct")
     if precond_mode in ("0",):
         precond_mode = "none"
     if precond_mode not in ("dct", "jacobi", "none"):

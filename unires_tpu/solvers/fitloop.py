@@ -250,10 +250,6 @@ def make_fit_chunk(x, y, sett, K: int, extra_budget: float = 0.0):
     do_scaling = bool(sett.scaling)
     do_rigid = bool(sett.unified_rigid)
     gauge_anchor = bool(getattr(sett, "rigid_gauge_anchor", True))
-    # units for the gauge-drift threshold: 1 mm translation ~ 10 mrad
-    # rotation (comparable image-space displacement at ~100 mm FOV radius)
-    q_gauge_scale = jnp.asarray([1.0, 1.0, 1.0, 0.01, 0.01, 0.01],
-                                jnp.float32)
     rigid_mod = max(int(sett.rigid_mod), 1)
     num_ls = 6  # reference run.py:119,131 line-search budget
     ct_flags = [x[c][n].ct for (c, n) in obs]
@@ -277,17 +273,31 @@ def make_fit_chunk(x, y, sett, K: int, extra_budget: float = 0.0):
         return tuple(tuple(scl_flat[flat_of[(c, n)]]
                            for n in range(len(x[c]))) for c in range(C))
 
-    def pose_capacity_ok(i2, qv, pres, posts, sub_pres, sub_posts):
-        """The push windows of observation i2 accept pose qv (device bool)."""
-        R = se3_expm(qv, basis)
-        M4m = mm(pres[i2], R, posts[i2])
-        ok = suites[i2]["capacity_ok"](M4m[:3, :4], inv44(M4m)[:3, :4])
-        info2 = sub_infos[i2]
-        if info2 is not None and not info2["sub_is_main"]:
-            M4s = mm(sub_pres[i2], R, sub_posts[i2])
-            ok &= info2["suite"]["capacity_ok"](M4s[:3, :4],
+    def cand_ok(i, qc, geom):
+        """The push windows of observation i accept pose qc (device bool)."""
+        pres, posts, sub_pres, sub_posts = geom[:4]
+        Rc = se3_expm(qc, basis)
+        # the MAIN forward ops must stay inside their push windows
+        M4m = mm(pres[i], Rc, posts[i])
+        okv = suites[i]["capacity_ok"](M4m[:3, :4], inv44(M4m)[:3, :4])
+        info = sub_infos[i]
+        if info is not None and not info["sub_is_main"]:
+            M4s = mm(sub_pres[i], Rc, sub_posts[i])
+            okv &= info["suite"]["capacity_ok"](M4s[:3, :4],
                                                 inv44(M4s)[:3, :4])
-        return ok
+        return okv
+
+    def match_ll(ys_c, dat_x, qc, s_i, tau, i, geom):
+        """Rigid matching term of observation i at pose qc."""
+        info = sub_infos[i]
+        po_u = info["po"]
+        M = mm(geom[2][i], se3_expm(qc, basis), geom[3][i])[:3, :4]
+        dat_yx = info["suite"]["pull"](ys_c, M)
+        if method == "super-resolution":
+            dat_yx = blur_down_sep(dat_yx, po_u.smo_ker_1d, po_u.ratio)
+            dat_yx = apply_scaling(dat_yx, s_i, po_u.dim_thick)
+        res = jnp.where(dat_x != 0, dat_x - dat_yx, 0.0)
+        return 0.5 * tau * stable_sum(res * res)
 
     def rho_of(taus, lams):
         if rho_fixed is not None:
@@ -369,7 +379,7 @@ def make_fit_chunk(x, y, sett, K: int, extra_budget: float = 0.0):
     # phase so the rigid round can project the pose-gauge common mode out
     # of the deltas in between (see do_rig below). Both phases are traced
     # exactly once per observation per chunk. ----
-    def rigid_stats(ys_c, dat_x, q_i, s_i, tau, i, geom, debug=False):
+    def rigid_stats(ys_c, dat_x, q_i, s_i, tau, i, geom):
             c, n = obs[i]
             pres, posts, sub_pres, sub_posts = geom[:4]
             info = sub_infos[i]
@@ -476,43 +486,9 @@ def make_fit_chunk(x, y, sett, K: int, extra_budget: float = 0.0):
             Hn = H * dscale[:, None] * dscale[None, :]
             gn = g * dscale
             sol = jnp.linalg.solve(Hn + 1e-5 * jnp.eye(6), gn)
-            delta = sol * dscale
-            if debug:
-                return delta, ll, dict(g=g, H=H)
-            return delta, ll
+            return sol * dscale, ll
 
-    def rigid_ls(ys_c, dat_x, q_i, s_i, tau, i, geom, delta, ll,
-                 debug=False):
-            pres, posts, sub_pres, sub_posts = geom[:4]
-            info = sub_infos[i]
-            suite = info["suite"]
-            po_u = info["po"]
-            pre, post = sub_pres[i], sub_posts[i]
-            sr = method == "super-resolution"
-            kers, ratio, axis = po_u.smo_ker_1d, po_u.ratio, po_u.dim_thick
-
-            def match_ll(M):
-                dat_yx = suite["pull"](ys_c, M)
-                if sr:
-                    dat_yx = blur_down_sep(dat_yx, kers, ratio)
-                    dat_yx = apply_scaling(dat_yx, s_i, axis)
-                msk = dat_x != 0
-                res = jnp.where(msk, dat_x - dat_yx, 0.0)
-                return 0.5 * tau * stable_sum(res * res)
-
-            def cand_ok(qc):
-                Rc = se3_expm(qc, basis)
-                okv = jnp.bool_(True)
-                # the MAIN forward ops must stay inside their push windows
-                M4m = mm(pres[i], Rc, posts[i])
-                okv &= suites[i]["capacity_ok"](M4m[:3, :4],
-                                                inv44(M4m)[:3, :4])
-                if not info["sub_is_main"]:
-                    M4s = mm(pre, Rc, post)
-                    okv &= suite["capacity_ok"](M4s[:3, :4],
-                                                inv44(M4s)[:3, :4])
-                return okv
-
+    def rigid_ls(ys_c, dat_x, q_i, s_i, tau, i, geom, delta, ll):
             # ---- capacity trust region: an ill-conditioned GN solve can
             # emit a HUGE delta; 6 Armijo halvings then never re-enter the
             # window budget, every candidate is vetoed, and the saturation
@@ -531,23 +507,23 @@ def make_fit_chunk(x, y, sett, K: int, extra_budget: float = 0.0):
             def pre_body(carry):
                 step, it, _, nv = carry
                 step = step * 0.5
-                return (step, it + 1, cand_ok(q_i - step * delta), nv + 1)
+                return (step, it + 1, cand_ok(i, q_i - step * delta, geom),
+                        nv + 1)
 
             step0, _, ok_pre, n_veto = jax.lax.while_loop(
                 pre_cond, pre_body,
-                (jnp.float32(1.0), jnp.int32(0), cand_ok(q_i - delta),
+                (jnp.float32(1.0), jnp.int32(0), cand_ok(i, q_i - delta, geom),
                  jnp.int32(0)))
 
             def ls_body(carry):
                 step, it, acc, q_best, ll_best, nv = carry
                 cand = q_i - step * delta
-                Rc = se3_expm(cand, basis)
-                Mc = mm(pre, Rc, post)[:3, :4]
                 # belt-and-braces: halving from an in-capacity step0 stays
                 # in capacity for every practical map, but push must NEVER
                 # run beyond its window — keep the guard
-                cap = cand_ok(cand)
-                llc = jnp.where(cap, match_ll(Mc), jnp.inf)
+                cap = cand_ok(i, cand, geom)
+                llc = jnp.where(cap, match_ll(ys_c, dat_x, cand, s_i, tau, i,
+                                              geom), jnp.inf)
                 ok = llc < ll_best
                 q_best = jnp.where(ok, cand, q_best)
                 ll_best = jnp.where(ok, llc, ll_best)
@@ -565,26 +541,7 @@ def make_fit_chunk(x, y, sett, K: int, extra_budget: float = 0.0):
             # could not re-enter the window budget: the pose is genuinely
             # pinned at the budget edge (the only case the host's
             # budget-escalating re-plan is for)
-            sat = (~acc_any) & (~ok_pre)
-            if debug:
-                Rd = se3_expm(q_i - delta, basis)
-                Md = mm(pre, Rd, post)[:3, :4]
-                return q_new, dict(ll=ll, delta=delta,
-                                   ok_full=cand_ok(q_i - delta),
-                                   ll_full=match_ll(Md))
-            return q_new, n_veto, sat
-
-    def rigid_obs(ys_c, dat_x, q_i, s_i, tau, i, geom, debug=False):
-            """Single-observation GN rigid update (stats + line search)."""
-            if debug:
-                delta, ll, extra = rigid_stats(ys_c, dat_x, q_i, s_i, tau,
-                                               i, geom, debug=True)
-                q_new, dbg = rigid_ls(ys_c, dat_x, q_i, s_i, tau, i, geom,
-                                      delta, ll, debug=True)
-                dbg.update(extra)
-                return q_new, dbg
-            delta, ll = rigid_stats(ys_c, dat_x, q_i, s_i, tau, i, geom)
-            return rigid_ls(ys_c, dat_x, q_i, s_i, tau, i, geom, delta, ll)
+            return q_new, n_veto, (~acc_any) & (~ok_pre)
 
     def chunk_impl(state: FitState, xdats, taus, subdats, geom):
         pres, posts, sub_pres, sub_posts, vx, lam0 = geom
@@ -684,25 +641,24 @@ def make_fit_chunk(x, y, sett, K: int, extra_budget: float = 0.0):
                             ns = ns + sat_i2.astype(jnp.int32)
                         qn = jnp.stack(new_q)
                         if gauge_anchor and Nobs > 1:
-                            # Safety net: per-observation line searches can
-                            # re-introduce a small common mode (different
-                            # accepted step sizes along the projected
-                            # directions). Re-centre the accumulated q (the
-                            # reference's mean_correct) only when the drift
-                            # exceeds 0.25 (mm / 10 mrad) — rare, so the
-                            # unevaluated-pose perturbation stays out of
-                            # the steady-state dynamics — and only when the
-                            # centred poses pass every window-capacity
-                            # check (the veto only vetted the uncentred
-                            # candidates).
-                            mq = jnp.mean(qn, axis=0)
-                            drift = jnp.max(jnp.abs(mq) / q_gauge_scale)
-                            qc = qn - mq[None]
-                            okc = drift > 0.25
+                            # Per-observation step lengths re-introduce a
+                            # small common mode. Re-centre the poses (the
+                            # reference's mean_correct) only where the
+                            # centred set passes every window-capacity check
+                            # AND its summed matching term is still below the
+                            # round's start: adopting centred poses
+                            # UNEVALUATED raised the objective 0.2-3.4% in
+                            # the next iteration.
+                            qc = qn - jnp.mean(qn, axis=0, keepdims=True)
+                            okc = jnp.bool_(True)
+                            llc = jnp.float32(0.0)
                             for i2 in range(Nobs):
-                                okc &= pose_capacity_ok(
-                                    i2, qc[i2], pres, posts, sub_pres,
-                                    sub_posts)
+                                c2, n2 = obs[i2]
+                                okc &= cand_ok(i2, qc[i2], geom)
+                                llc = llc + match_ll(
+                                    ys[c2], dats[i2], qc[i2], scl[i2],
+                                    taus[c2][n2], i2, geom)
+                            okc &= llc < sum(lls)
                             qn = jnp.where(okc, qc, qn)
                         return qn, nv, ns
 
@@ -783,7 +739,7 @@ def make_fit_chunk(x, y, sett, K: int, extra_budget: float = 0.0):
     chunk.stats = stats
 
     # exposed for tests / debugging of the per-observation device updates
-    chunk._debug = dict(rigid_obs=rigid_obs, scaling_obs=scaling_obs,
+    chunk._debug = dict(scaling_obs=scaling_obs,
                         maps_from_q=maps_from_q, sub_infos=sub_infos,
                         geom=geom_args)
     # the raw (un-jitted) chunk body: a pure function of
